@@ -1,10 +1,10 @@
 """Targeted benchmark — the reference protocol script
 (`/root/reference/benchmarks/targetted_bench.py`): B=4, S=4096, H=32, D=128,
 forward-only, printing per-kernel latency and masked output checksums for the
-three comparison kernels (ours / oracle-style XLA dense / stock JAX Pallas
-flash attention where available).
+three comparison kernels (ours / oracle-style XLA dense / cuDNN fused
+attention).
 
-Run on TPU:  python benchmarks/targetted_bench.py
+Run on the GPU:  python benchmarks/targetted_bench.py
 """
 from __future__ import annotations
 
@@ -17,11 +17,11 @@ import jax.numpy as jnp
 sys.path.insert(0, ".")  # repo root
 
 from bench import make_inputs  # noqa: E402
-from fa2_triton_tpu import flash_attn_func  # noqa: E402
-from fa2_triton_tpu.other_implementations import (  # noqa: E402
-    jax_flash_attention, xla_attention,
+from fa2_jax import flash_attn_func  # noqa: E402
+from fa2_jax.other_implementations import (  # noqa: E402
+    cudnn_attention, xla_attention,
 )
-from fa2_triton_tpu.utils.benchmarking import device_time  # noqa: E402
+from fa2_jax.utils.benchmarking import device_time  # noqa: E402
 
 BATCH = 4
 SEQLEN = 4096
@@ -42,16 +42,12 @@ def main():
     kernels = {
         "ours": functools.partial(flash_attn_func, causal=CAUSAL),
         "xla-dense": functools.partial(xla_attention, causal=CAUSAL),
-        "stock-pallas": functools.partial(jax_flash_attention, causal=CAUSAL),
-        # Same kernel with swept block sizes — the honest comparison point
-        # (its defaults are all-128 blocks at this shape).
-        "stock-tuned": functools.partial(
-            jax_flash_attention, causal=CAUSAL, tuned=True),
+        "cudnn": functools.partial(cudnn_attention, causal=CAUSAL),
     }
 
     for name, fn in kernels.items():
         out = fn(q, k, v)
-        t = device_time(fn, q, k, v, iters=10)
+        t = device_time(fn, q, k, v)
         print(f"{name:14s}: {t*1e3:8.3f} ms  {flops/t/1e12:7.1f} TFLOP/s  "
               f"checksum={checksum(out):.6g}")
 

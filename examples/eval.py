@@ -6,7 +6,7 @@ windows from the memmapped corpus (`utils/data.py`), and report token-level
 cross-entropy / perplexity. The eval step is one jitted forward per batch
 (no grads, so remat is irrelevant and activation memory is a single layer).
 
-  python examples/eval.py --data corpus.bin --ckpt-dir /tmp/fa2_train_ckpt \
+  python examples/eval.py --data corpus.bin --ckpt-dir .ckpt/train \
       --batches 50 --batch 8 --seq 2048 --dim 1024 --layers 8
 """
 from __future__ import annotations
@@ -21,7 +21,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "cpu", "gpu"])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     ap.add_argument("--data", required=True, metavar="FILE")
     ap.add_argument("--ckpt-dir", default=None,
                     help="train.py checkpoint to evaluate (fresh init if "
@@ -42,25 +44,24 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
-    from fa2_triton_tpu.models import LlamaConfig, init_params, loss_fn
-    from fa2_triton_tpu.utils.data import TokenLoader, open_corpus
+    from fa2_jax.models import LlamaConfig, init_params, loss_fn
+    from fa2_jax.utils.data import TokenLoader, open_corpus
 
     cfg = LlamaConfig(
         vocab_size=args.vocab, dim=args.dim, n_layers=args.layers,
         n_heads=args.heads, n_kv_heads=args.kv_heads,
         hidden_dim=int(args.dim * 2.75) // 128 * 128,
         max_seq_len=args.seq + 1,
-        dtype=jnp.bfloat16 if jax.devices()[0].platform != "cpu"
-        else jnp.float32,
+        dtype=jnp.dtype(args.dtype),
     )
     params = init_params(jax.random.PRNGKey(0), cfg)
     if args.ckpt_dir:
         import optax
 
-        from fa2_triton_tpu.utils.checkpoint import CheckpointManager
+        from fa2_jax.utils.checkpoint import CheckpointManager
 
-        # Reconstruct train.py's DEFAULT-flags state structure (orbax
-        # restores into a like-shaped pytree); custom --lr/--warmup/--clip
+        # Reconstruct train.py's DEFAULT-flags state structure (the
+        # checkpoint restores into a like-shaped pytree); custom --lr/--warmup/--clip
         # runs keep the same tree shape, so any train.py checkpoint loads.
         opt = optax.chain(optax.clip_by_global_norm(1.0),
                           optax.adamw(optax.constant_schedule(3e-4),

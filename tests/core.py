@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fa2_triton_tpu import flash_attn_func, flash_attn_reference
-from fa2_triton_tpu.utils.rng import dropout_keep_mask_reference
+from fa2_jax import flash_attn_func, flash_attn_reference
+from fa2_jax.utils.rng import dropout_keep_mask_reference
 from tests.utils import compare_results_fa, generate_attention_mask, generate_test_data
 
 

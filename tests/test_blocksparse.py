@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu import flash_attn_blocksparse_func
+from fa2_jax import flash_attn_blocksparse_func
 
 BQ = BKV = 128
 
@@ -19,7 +19,7 @@ def _dense_oracle(q, k, v, block_mask, causal, scale):
     g = Hq // Hkv
     kx = jnp.repeat(k, g, axis=2)
     vx = jnp.repeat(v, g, axis=2)
-    # precision='highest': on TPU the default einsum runs bf16 passes, which
+    # precision='highest': on the GPU the default einsum runs TF32, which
     # would dominate the comparison (the kernels pin f32 dots to HIGHEST).
     scores = jnp.einsum("bqhd,bkhd->bhqk", q, kx,
                         precision="highest").astype(jnp.float32) * scale
@@ -107,16 +107,18 @@ def test_blocksparse_grads_match_oracle():
 
 
 def test_blocksparse_cost_scales_with_live_blocks():
-    """The schedule contains exactly the live pairs (plus zero-fill
-    dummies) — the point of the work-list design."""
-    from fa2_triton_tpu.ops.varlen import _build_schedule
+    """The index lists contain exactly the live pairs — the point of the
+    per-program list design."""
+    from fa2_jax.ops.varlen import _build_schedule
 
     nb = 8
     mask = np.eye(nb, dtype=bool)      # diagonal-only: nb live pairs
-    work = _build_schedule(
+    meta, lists = _build_schedule(
         [0], [nb * BQ], [nb * BQ], [nb * BQ], BQ, BKV, False,
         keep_block=lambda s, jq, jk: bool(mask[jq, jk]))
-    assert work.shape[0] == nb         # one step per live pair, no dummies
-    dense = _build_schedule([0], [nb * BQ], [nb * BQ], [nb * BQ],
-                            BQ, BKV, False)
-    assert dense.shape[0] == nb * nb
+    assert int(meta[:, 4].sum()) == nb  # one entry per live pair
+    assert lists.shape == (nb, 1)
+    assert list(lists[:, 0]) == list(range(nb))
+    meta, _ = _build_schedule([0], [nb * BQ], [nb * BQ], [nb * BQ],
+                              BQ, BKV, False)
+    assert int(meta[:, 4].sum()) == nb * nb

@@ -9,8 +9,8 @@ import pytest
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from fa2_triton_tpu.models import forward
-from fa2_triton_tpu.models.convert import llama_params_from_hf
+from fa2_jax.models import forward
+from fa2_jax.models.convert import llama_params_from_hf
 
 
 def _tiny_hf(n_heads=4, n_kv=4, seed=0):
@@ -47,7 +47,7 @@ def test_converted_model_greedy_decode_matches_hf():
             torch.tensor([prompt]), max_new_tokens=n_new, do_sample=False,
             num_beams=1, pad_token_id=0,
         )[0, len(prompt):].tolist()
-    from fa2_triton_tpu.runtime.speculative import greedy_reference
+    from fa2_jax.runtime.speculative import greedy_reference
 
     ours = greedy_reference(params, cfg, prompt, n_new, max_seq=128)
     assert ours == hf_out, (ours, hf_out)
@@ -98,7 +98,7 @@ def test_llama3_rope_scaling_parity_vs_transformers():
     from dataclasses import replace as _rep  # noqa: F401
     bad = transformers.LlamaConfig(rope_scaling={"rope_type": "yarn",
                                                  "factor": 4.0})
-    from fa2_triton_tpu.models.convert import _rope_factors_from_hf
+    from fa2_jax.models.convert import _rope_factors_from_hf
     with pytest.raises(NotImplementedError):
         _rope_factors_from_hf(bad)
 
@@ -154,7 +154,7 @@ def test_qwen2_greedy_decode_matches_hf():
             torch.tensor([prompt]), max_new_tokens=n_new, do_sample=False,
             num_beams=1, pad_token_id=0,
         )[0, len(prompt):].tolist()
-    from fa2_triton_tpu.runtime.speculative import greedy_reference
+    from fa2_jax.runtime.speculative import greedy_reference
 
     ours = greedy_reference(params, cfg, prompt, n_new, max_seq=128)
     assert ours == hf_out, (ours, hf_out)
@@ -164,7 +164,7 @@ def test_gemma_logits_parity_vs_transformers():
     """Gemma = Llama + (1+w) RMSNorm + sqrt(dim)-scaled embeddings + GeGLU +
     explicit head_dim + tied unscaled lm_head; the first three are absorbed
     at conversion (`models/convert.py:gemma_params_from_hf`)."""
-    from fa2_triton_tpu.models.convert import gemma_params_from_hf
+    from fa2_jax.models.convert import gemma_params_from_hf
 
     torch.manual_seed(17)
     hf_cfg = transformers.GemmaConfig(
@@ -186,7 +186,7 @@ def test_gemma_logits_parity_vs_transformers():
 
 
 def test_gemma_greedy_decode_matches_hf():
-    from fa2_triton_tpu.models.convert import gemma_params_from_hf
+    from fa2_jax.models.convert import gemma_params_from_hf
 
     torch.manual_seed(19)
     hf_cfg = transformers.GemmaConfig(
@@ -205,7 +205,7 @@ def test_gemma_greedy_decode_matches_hf():
             torch.tensor([prompt]), max_new_tokens=n_new, do_sample=False,
             num_beams=1, pad_token_id=0,
         )[0, len(prompt):].tolist()
-    from fa2_triton_tpu.runtime.speculative import greedy_reference
+    from fa2_jax.runtime.speculative import greedy_reference
 
     ours = greedy_reference(params, cfg, prompt, n_new, max_seq=128)
     assert ours == hf_out, (ours, hf_out)
@@ -231,7 +231,7 @@ def test_gemma2_logits_parity_vs_transformers():
     softcap — full-stack parity against the HF eager forward. The 60-token
     sequence exceeds the 32-token window, so the even layers' sliding
     masking is load-bearing."""
-    from fa2_triton_tpu.models.convert import gemma2_params_from_hf
+    from fa2_jax.models.convert import gemma2_params_from_hf
 
     model = _tiny_gemma2(29)
     params, cfg = gemma2_params_from_hf(model, dtype=jnp.float32)
@@ -248,7 +248,7 @@ def test_gemma2_logits_parity_vs_transformers():
 def test_gemma2_greedy_decode_matches_hf():
     """The CACHED decode path (forward_with_cache with per-layer windows +
     softcap through `flash_attn_with_kv_cache`) against HF generate."""
-    from fa2_triton_tpu.models.convert import gemma2_params_from_hf
+    from fa2_jax.models.convert import gemma2_params_from_hf
 
     model = _tiny_gemma2(31)
     params, cfg = gemma2_params_from_hf(model, dtype=jnp.float32)
@@ -259,7 +259,7 @@ def test_gemma2_greedy_decode_matches_hf():
             torch.tensor([prompt]), max_new_tokens=n_new, do_sample=False,
             num_beams=1, pad_token_id=0,
         )[0, len(prompt):].tolist()
-    from fa2_triton_tpu.runtime.speculative import greedy_reference
+    from fa2_jax.runtime.speculative import greedy_reference
 
     ours = greedy_reference(params, cfg, prompt, n_new, max_seq=128)
     assert ours == hf_out, (ours, hf_out)
@@ -267,7 +267,7 @@ def test_gemma2_greedy_decode_matches_hf():
 
 def test_logit_softcap_applied():
     """cfg.logit_softcap caps every forward path's logits (Gemma2-style)."""
-    from fa2_triton_tpu.models import LlamaConfig as LC, init_params
+    from fa2_jax.models import LlamaConfig as LC, init_params
     from dataclasses import replace as rep
 
     cfg = LC(vocab_size=64, dim=32, n_layers=1, n_heads=2, n_kv_heads=2,
@@ -283,8 +283,8 @@ def test_logit_softcap_applied():
 
 
 def test_gpt2_logits_parity_vs_transformers():
-    from fa2_triton_tpu.models import gpt2
-    from fa2_triton_tpu.models.convert import gpt2_params_from_hf
+    from fa2_jax.models import gpt2
+    from fa2_jax.models.convert import gpt2_params_from_hf
 
     torch.manual_seed(3)
     hf_cfg = transformers.GPT2Config(
@@ -305,8 +305,8 @@ def test_gemma2_served_through_engine(paged):
     """Gemma2 through the serving Engine: the DECODE KERNELS' softcap +
     per-layer alternating windows (`ops/decode.py`) must reproduce HF
     generate token-for-token."""
-    from fa2_triton_tpu.models.convert import gemma2_params_from_hf
-    from fa2_triton_tpu.runtime import Engine
+    from fa2_jax.models.convert import gemma2_params_from_hf
+    from fa2_jax.runtime import Engine
 
     model = _tiny_gemma2(37)
     params, cfg = gemma2_params_from_hf(model, dtype=jnp.float32)
@@ -350,7 +350,7 @@ def test_qwen3_logits_and_decode_parity_vs_transformers():
             torch.tensor([prompt]), max_new_tokens=n_new, do_sample=False,
             num_beams=1, pad_token_id=0,
         )[0, len(prompt):].tolist()
-    from fa2_triton_tpu.runtime.speculative import greedy_reference
+    from fa2_jax.runtime.speculative import greedy_reference
 
     ours_dec = greedy_reference(params, cfg, prompt, n_new, max_seq=128)
     assert ours_dec == hf_out, (ours_dec, hf_out)
@@ -359,7 +359,7 @@ def test_qwen3_logits_and_decode_parity_vs_transformers():
 def test_phi3_logits_and_decode_parity_vs_transformers():
     """Phi-3 = Llama with PACKED qkv_proj / gate_up_proj; conversion splits
     the stacked matrices."""
-    from fa2_triton_tpu.models.convert import phi3_params_from_hf
+    from fa2_jax.models.convert import phi3_params_from_hf
 
     torch.manual_seed(43)
     hf_cfg = transformers.Phi3Config(
@@ -384,7 +384,7 @@ def test_phi3_logits_and_decode_parity_vs_transformers():
             torch.tensor([prompt]), max_new_tokens=n_new, do_sample=False,
             num_beams=1, pad_token_id=0,
         )[0, len(prompt):].tolist()
-    from fa2_triton_tpu.runtime.speculative import greedy_reference
+    from fa2_jax.runtime.speculative import greedy_reference
 
     ours_dec = greedy_reference(params, cfg, prompt, n_new, max_seq=128)
     assert ours_dec == hf_out, (ours_dec, hf_out)

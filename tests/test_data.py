@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fa2_triton_tpu.utils.data import (
+from fa2_jax.utils.data import (
     TokenLoader, encode_corpus, open_corpus, prefetch_to_device,
 )
 
@@ -45,7 +45,7 @@ def test_epoch_shuffle_deterministic():
 def test_prefetch_preserves_stream_and_sharding():
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from fa2_triton_tpu.parallel import AXIS_DATA, make_mesh
+    from fa2_jax.parallel import AXIS_DATA, make_mesh
 
     data = np.arange(1 + 16 * 8, dtype=np.uint16)
     dl = TokenLoader(data, batch=4, seq_len=8, seed=1)

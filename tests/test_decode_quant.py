@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.ops.decode import decode_attention
-from fa2_triton_tpu.ops.quant import dequantize_tensor, quantize_tensor
-from fa2_triton_tpu.ops.reference import flash_attn_reference
+from fa2_jax.ops.decode import decode_attention
+from fa2_jax.ops.quant import dequantize_tensor, quantize_tensor
+from fa2_jax.ops.reference import flash_attn_reference
 
 
 def _setup(B=3, Hq=8, Hkv=2, S_max=256, D=128, seed=0):

@@ -12,9 +12,9 @@ import numpy as np
 import optax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from fa2_triton_tpu.models import LlamaConfig, init_params, loss_fn
-from fa2_triton_tpu.parallel import make_mesh
-from fa2_triton_tpu.parallel.mesh import AXIS_DATA, fsdp_param_pspecs
+from fa2_jax.models import LlamaConfig, init_params, loss_fn
+from fa2_jax.parallel import make_mesh
+from fa2_jax.parallel.mesh import AXIS_DATA, fsdp_param_pspecs
 
 CFG = LlamaConfig(
     vocab_size=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -74,7 +74,7 @@ def test_fsdp_composes_with_tp():
     """On a data x model mesh, fsdp_param_pspecs keeps the Megatron TP
     sharding AND shards a free dim over data (ZeRO-3 over the TP shards),
     and the composed train step matches the replicated step."""
-    from fa2_triton_tpu.parallel.mesh import AXIS_MODEL, shard_params
+    from fa2_jax.parallel.mesh import AXIS_MODEL, shard_params
 
     params = init_params(jax.random.PRNGKey(0), CFG)
     mesh = make_mesh(data=2, model=2)

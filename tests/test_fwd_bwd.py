@@ -3,7 +3,7 @@
 The default grid is a curated sweep of the reference's adversarial axes
 (prime seqlens, seqlen_q <> seqlen_k causal, odd head dims, GQA/MQA,
 mask/bias); set FA2_FULL_GRID=1 for the reference-scale grid (slow on CPU
-interpret mode, intended for TPU runs).
+interpret mode, intended for GPU runs).
 """
 import os
 
@@ -29,7 +29,7 @@ DTYPES = ([jnp.float32, jnp.float16] if FULL else [])
 
 
 # fp16 parity: the reference's whole grid runs fp16 (`tests/test_fwd_bwd.py:13`
-# there); bf16 is the right TPU default but fp16 I/O must work and stay pinned.
+# there); bf16 is the training default but fp16 I/O must work and stay pinned.
 @pytest.mark.parametrize("causal", [False, True])
 def test_fp16(causal):
     run_attention_case(2, 4, 2, 255, 255, 64, causal=causal, dtype=jnp.float16)
@@ -41,10 +41,10 @@ def test_fp16_mask_gqa():
 
 
 def test_fp16_bf16_compute_opt_in():
-    """fp16 I/O with fp16_compute_dtype=bfloat16 (the full-MXU-rate option,
+    """fp16 I/O with fp16_compute_dtype=bfloat16 (the full-tensor-core-rate option,
     VERDICT r2): output stays within the FA relative-tolerance contract of
     a low-precision oracle — bf16's mantissa error profile matches fp16's."""
-    from fa2_triton_tpu import flash_attn_func, flash_attn_reference
+    from fa2_jax import flash_attn_func, flash_attn_reference
 
     ks = jax.random.split(jax.random.PRNGKey(5), 3)
     q = (jax.random.normal(ks[0], (2, 255, 4, 64)) * 0.5).astype(jnp.float16)

@@ -1,8 +1,8 @@
 """Forward-only grid including dropout (reference `tests/test_fwd_only.py`).
 
 Dropout is checked by handing the oracle the *same* counter-based keep-mask
-the kernel generates internally (see `fa2_triton_tpu/utils/rng.py` — the
-TPU-native replacement for the reference's Triton `tl.rand` stream
+the kernel generates internally (see `fa2_jax/utils/rng.py` — the
+replacement for the reference's Triton `tl.rand` stream
 replication, `tests/utils.py:169-207` there).
 """
 import jax.numpy as jnp
@@ -34,7 +34,7 @@ def test_dropout_bwd():
 
 def test_dropout_rate():
     """The realized dropout fraction is close to dropout_p."""
-    from fa2_triton_tpu.utils.rng import dropout_keep_mask_reference
+    from fa2_jax.utils.rng import dropout_keep_mask_reference
 
     mask = dropout_keep_mask_reference(7, 0.3, 2, 4, 128, 128)
     frac = 1.0 - float(jnp.mean(mask.astype(jnp.float32)))

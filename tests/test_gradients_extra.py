@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu import flash_attn_func, flash_attn_reference
+from fa2_jax import flash_attn_func, flash_attn_reference
 from tests.utils import GRAD_ERROR_BIAS, GRAD_ERROR_MUL, generate_test_data, max_diff
 
 
@@ -63,7 +63,7 @@ def _valid_lse_loss(lse, mask):
 def test_lse_cotangent(causal, dropout_p):
     """Differentiating a loss that consumes the LSE output must propagate the
     LSE cotangent (folded into delta), not silently drop it."""
-    from fa2_triton_tpu.utils.rng import dropout_keep_mask_reference
+    from fa2_jax.utils.rng import dropout_keep_mask_reference
 
     B, Hq, Hkv, Sq, Sk, D = 2, 4, 2, 128, 128, 64
     q, k, v, _ = generate_test_data(B, Hq, Hkv, Sq, Sk, D, jnp.float32)
@@ -87,7 +87,7 @@ def test_lse_cotangent(causal, dropout_p):
     for name, a, b in zip(("dq", "dk", "dv"), g_ours, g_ref):
         err = max_diff(a, b)
         # 2e-4 absolute on O(10) gradients: fp32 reduction-order noise; the
-        # compiled TPU kernels land at ~8e-5 where CPU interpret gives ~3e-6.
+        # compiled kernels can land near ~1e-4 where CPU interpret gives ~3e-6.
         assert err < 2e-4, f"{name} lse-cotangent err {err:.3e}"
 
 

@@ -1,4 +1,4 @@
-"""Tests for the flax linen integration layer (`fa2_triton_tpu/layers.py`).
+"""Tests for the flax linen integration layer (`fa2_jax/layers.py`).
 
 The reference has no module layer (users call `flash_attn_func` directly,
 `/root/reference/src/wrapper.py:89-100`); this checks the linen wrapper's
@@ -10,8 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.layers import FlashSelfAttention
-from fa2_triton_tpu.ops.reference import flash_attn_reference
+pytest.importorskip("flax")  # an optional dependency of the linen layer
+
+from fa2_jax.layers import FlashSelfAttention  # noqa: E402
+from fa2_jax.ops.reference import flash_attn_reference  # noqa: E402
 
 
 def _make(B=2, S=64, F=128, **kw):

@@ -7,7 +7,7 @@ LSE must equal the natural-log LSE times log2(e) (SURVEY.md §2.2).
 import jax.numpy as jnp
 import pytest
 
-from fa2_triton_tpu import flash_attn_func, flash_attn_reference
+from fa2_jax import flash_attn_func, flash_attn_reference
 from tests.utils import generate_attention_mask, generate_test_data
 
 

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fa2_triton_tpu.models import LlamaConfig, forward, init_params, loss_fn
-from fa2_triton_tpu.models.lora import init_lora, lora_loss_fn, merge_lora
+from fa2_jax.models import LlamaConfig, forward, init_params, loss_fn
+from fa2_jax.models.lora import init_lora, lora_loss_fn, merge_lora
 
 CFG = LlamaConfig(
     vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -57,7 +57,7 @@ def test_adapter_training_reduces_loss_base_frozen():
 
 
 def test_merged_adapter_serves_through_engine():
-    from fa2_triton_tpu.runtime import Engine
+    from fa2_jax.runtime import Engine
 
     params = init_params(jax.random.PRNGKey(0), CFG)
     lora = init_lora(jax.random.PRNGKey(1), params, rank=4)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from fa2_triton_tpu.models import (
+from fa2_jax.models import (
     LlamaConfig, forward, forward_with_cache, init_kv_cache, init_params, loss_fn,
 )
 
@@ -51,7 +51,7 @@ def test_kv_cache_decode_matches_full_forward(params):
     """Prefill + single-token decode steps must match the full causal
     forward on the same sequence (the KV-cache path exercises the kernels'
     global position offsets)."""
-    from fa2_triton_tpu.ops.attention import flash_attn_with_kv_cache
+    from fa2_jax.ops.attention import flash_attn_with_kv_cache
 
     B, S_prefill, S_total = 2, 48, 52
     tokens = jax.random.randint(jax.random.PRNGKey(3), (B, S_total), 0, CFG.vocab_size)

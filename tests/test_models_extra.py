@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fa2_triton_tpu import flash_attn_reference
-from fa2_triton_tpu.models import GPT2Config, LlamaConfig, gpt2
-from fa2_triton_tpu.models.llama import (
+from fa2_jax import flash_attn_reference
+from fa2_jax.models import GPT2Config, LlamaConfig, gpt2
+from fa2_jax.models.llama import (
     forward as llama_forward,
     init_params as llama_init,
     make_attention_fn,
@@ -91,7 +91,7 @@ def test_remat_matches_no_remat():
 
     import numpy as np
 
-    from fa2_triton_tpu.models import LlamaConfig, init_params, loss_fn
+    from fa2_jax.models import LlamaConfig, init_params, loss_fn
 
     cfg = LlamaConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4,
                       n_kv_heads=2, hidden_dim=96, max_seq_len=64,

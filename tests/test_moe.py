@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.models import moe
-from fa2_triton_tpu.parallel import make_mesh
+from fa2_jax.models import moe
+from fa2_jax.parallel import make_mesh
 
 
 def _cfg(**kw):
@@ -143,7 +143,7 @@ def test_moe_serves_through_engine():
     `_mlp_block` dispatches MoE layers (router key) to the dense drop-free
     MLP, so prefill + batched decode reproduce the full-forward greedy path
     exactly (batch-invariance is the point of the dense inference path)."""
-    from fa2_triton_tpu.runtime import Engine
+    from fa2_jax.runtime import Engine
 
     cfg = _cfg(max_seq_len=128)
     params = moe.init_params(jax.random.PRNGKey(9), cfg)

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.ops.decode import paged_decode_attention
-from fa2_triton_tpu.ops.reference import flash_attn_reference
-from fa2_triton_tpu.runtime.paged_cache import PagedCacheConfig, PagedKVCache
+from fa2_jax.ops.decode import paged_decode_attention
+from fa2_jax.ops.reference import flash_attn_reference
+from fa2_jax.runtime.paged_cache import PagedCacheConfig, PagedKVCache
 
 
 def _dense_oracle(q, k_bhsd, v_bhsd, lens):
@@ -56,7 +56,7 @@ def test_paged_decode_matches_dense(qdtype):
         tol = 2e-5
     else:
         # Matched bit-width: oracle on the dequantized pool contents.
-        from fa2_triton_tpu.ops.quant import dequantize_tensor, quantize_tensor
+        from fa2_jax.ops.quant import dequantize_tensor, quantize_tensor
         kq, ks = quantize_tensor(jnp.transpose(k, (0, 2, 1, 3)), qdtype)
         vq, vs = quantize_tensor(jnp.transpose(v, (0, 2, 1, 3)), qdtype)
         ref = _dense_oracle(q, dequantize_tensor(kq, ks),

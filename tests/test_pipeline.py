@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.models import LlamaConfig, forward, init_params, loss_fn
-from fa2_triton_tpu.parallel import make_mesh
-from fa2_triton_tpu.parallel.pipeline import (
+from fa2_jax.models import LlamaConfig, forward, init_params, loss_fn
+from fa2_jax.parallel import make_mesh
+from fa2_jax.parallel.pipeline import (
     make_llama_pipeline_forward,
     make_pipeline,
     pipeline_params_from_llama,
@@ -109,7 +109,7 @@ def test_llama_3d_pp_dp_tp_matches_single_device():
                                 cfg.vocab_size)
     ref = forward(params, tokens, cfg)
 
-    from fa2_triton_tpu.parallel.pipeline import make_llama_3d_forward
+    from fa2_jax.parallel.pipeline import make_llama_3d_forward
 
     mesh = make_mesh(pipe=2, data=2, model=2)
     f3d = make_llama_3d_forward(mesh, cfg, n_microbatches=2)

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.models import LlamaConfig, init_params
-from fa2_triton_tpu.runtime import Engine
-from fa2_triton_tpu.runtime.paged_cache import PagedCacheConfig, PagedKVCache
+from fa2_jax.models import LlamaConfig, init_params
+from fa2_jax.runtime import Engine
+from fa2_jax.runtime.paged_cache import PagedCacheConfig, PagedKVCache
 
 CFG = LlamaConfig(
     vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -281,7 +281,7 @@ def test_gemma2_style_knobs_compose_with_prefix_cache():
 def test_moe_through_paged_engine_with_prefix_cache():
     """MoE layer pytrees served through the paged engine with prefix caching
     (the dense batch-invariant MLP path + shared attention pages)."""
-    from fa2_triton_tpu.models import moe
+    from fa2_jax.models import moe
 
     mcfg = moe.MoEConfig(
         vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu import flash_attn_reference
+from fa2_jax import flash_attn_reference
 
 torch = pytest.importorskip("torch")
 
@@ -42,7 +42,7 @@ def test_oracle_lse_analytic():
     k = jnp.asarray(rng.normal(0, 0.5, (B, S, H, D)), jnp.float32)
     v = jnp.asarray(rng.normal(0, 0.5, (B, S, H, D)), jnp.float32)
     _, lse = flash_attn_reference(q, k, v, return_lse=True)
-    # precision: TPU fp32 einsums default to fast bf16-pass matmuls; the
+    # precision: GPU fp32 einsums default to TF32 matmuls; the
     # max-subtraction matches the oracle's algorithm so the comparison only
     # measures the identity, not exp() argument-range sensitivity.
     scores = jnp.einsum("bthd,bshd->bhts", q / math.sqrt(D), k,

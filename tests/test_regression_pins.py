@@ -3,7 +3,7 @@ analog, drawn from the reference's documented bug graveyard at
 `investigate_result.py:122-164`): shapes that historically broke
 flash-attention implementations — pipelining bugs at head_dim=64 with
 s=(113,255) + matrix bias, races at head dims 48/96, one-coefficient dV
-errors. Pallas/Mosaic has no cross-program races by construction, but these
+errors. The Pallas kernels have no cross-program races by construction, but these
 shapes stress the same edge paths (masked edge blocks, non-pow2 head dims,
 asymmetric causal diagonals), so they stay pinned here.
 """

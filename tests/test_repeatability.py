@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fa2_triton_tpu import flash_attn_func
+from fa2_jax import flash_attn_func
 from tests.utils import generate_attention_mask, generate_test_data
 
 # 10 repeated runs, matching the reference's rigor

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.models import LlamaConfig, forward, init_params
-from fa2_triton_tpu.runtime import Engine, SamplingParams
-from fa2_triton_tpu.runtime.sampling import sample_tokens
+from fa2_jax.models import LlamaConfig, forward, init_params
+from fa2_jax.runtime import Engine, SamplingParams
+from fa2_jax.runtime.sampling import sample_tokens
 
 CFG = LlamaConfig(
     vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -142,7 +142,7 @@ def test_top_p_one_keeps_full_support():
 def test_tp_engine_sampled_matches_single_device():
     """Sampled (and nucleus-filtered) requests must produce identical token
     streams on the TP mesh and on one device."""
-    from fa2_triton_tpu.parallel import make_mesh
+    from fa2_jax.parallel import make_mesh
 
     params = init_params(jax.random.PRNGKey(0), CFG)
 
@@ -162,7 +162,7 @@ def test_tp_engine_sampled_matches_single_device():
 def test_engine_reports_logprobs():
     """Every generated token carries its raw-model logprob; greedy tokens'
     logprobs equal log_softmax at the argmax of a recomputed forward."""
-    from fa2_triton_tpu.models import forward
+    from fa2_jax.models import forward
 
     params = init_params(jax.random.PRNGKey(0), CFG)
     prompt = [3, 5, 8, 13, 21]

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.models import LlamaConfig, forward, init_params
-from fa2_triton_tpu.runtime import Engine
+from fa2_jax.models import LlamaConfig, forward, init_params
+from fa2_jax.runtime import Engine
 
 CFG = LlamaConfig(
     vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,

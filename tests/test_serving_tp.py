@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fa2_triton_tpu.models.llama import (
+from fa2_jax.models.llama import (
     LlamaConfig, init_params, quantize_model_params,
 )
-from fa2_triton_tpu.parallel.mesh import make_mesh
-from fa2_triton_tpu.runtime.serving import Engine
+from fa2_jax.parallel.mesh import make_mesh
+from fa2_jax.runtime.serving import Engine
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 2,
@@ -64,7 +64,7 @@ def test_dp_tp_engine_matches_single_device(params):
     """(data=2, model=2) DataParallelEngine: two TP replicas fed from a
     shared queue produce the single-device engine's greedy tokens
     (VERDICT r2: serve across the data axis)."""
-    from fa2_triton_tpu.runtime.serving import DataParallelEngine
+    from fa2_jax.runtime.serving import DataParallelEngine
 
     mesh4 = make_mesh(data=2, model=2, devices=jax.devices()[:4])
     dp = DataParallelEngine(params, CFG, mesh4, n_slots=2, max_seq=256)

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fa2_triton_tpu import flash_attn_func
-from fa2_triton_tpu.parallel import (
+from fa2_jax import flash_attn_func
+from fa2_jax.parallel import (
     make_mesh, make_ring_attention, make_tp_attention,
 )
 from tests.utils import generate_test_data
@@ -74,7 +74,7 @@ def test_multihost_mesh_layout():
     """make_multihost_mesh puts data outermost (DCN) and model/seq within a
     host's chips (ICI); on one (virtual) host it must still work and keep
     model-axis neighbors adjacent in device order."""
-    from fa2_triton_tpu.parallel.mesh import make_multihost_mesh
+    from fa2_jax.parallel.mesh import make_multihost_mesh
 
     mesh = make_multihost_mesh(model=2, seq=2)
     assert mesh.shape["model"] == 2 and mesh.shape["seq"] == 2

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.models import LlamaConfig, init_params
-from fa2_triton_tpu.runtime.sampling import SamplingParams
-from fa2_triton_tpu.runtime.speculative import (
+from fa2_jax.models import LlamaConfig, init_params
+from fa2_jax.runtime.sampling import SamplingParams
+from fa2_jax.runtime.speculative import (
     SpeculativeDecoder, greedy_reference, spec_accept,
 )
 

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu.ops.attention import flash_attn_func
-from fa2_triton_tpu.parallel import make_mesh
-from fa2_triton_tpu.parallel.ulysses import make_ulysses_attention
+from fa2_jax.ops.attention import flash_attn_func
+from fa2_jax.parallel import make_mesh
+from fa2_jax.parallel.ulysses import make_ulysses_attention
 
 
 def _data(B=2, S=256, Hq=8, Hkv=4, D=64, seed=0):

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fa2_triton_tpu import (
+from fa2_jax import (
     flash_attn_reference,
     flash_attn_varlen_func,
     pack_padded_batch,
     unpack_padded_batch,
 )
-from fa2_triton_tpu.ops.varlen import _build_schedule, _seg_extents
+from fa2_jax.ops.varlen import _build_schedule, _seg_extents
 
 
 def _err(a, b):
@@ -77,7 +77,7 @@ def test_packed_varlen_fwd_bwd_matches_oracle(causal, lens, blocks):
 def test_packed_varlen_fwd_zero_fill_and_lse():
     """Dead packed rows: out == 0, lse == -inf; live rows' lse matches the
     dense kernel's base-2 LSE."""
-    from fa2_triton_tpu import flash_attn_func
+    from fa2_jax import flash_attn_func
 
     lens = (300, 512)
     B, S, Hq, Hkv, D = 2, 512, 2, 2, 64
@@ -103,7 +103,7 @@ def test_packed_varlen_dropout_matches_oracle(causal):
     """Packed dropout stream (global packed coordinates — see
     `ops/varlen._packed_dropout_bits`): fwd+bwd match the oracle fed the
     bit-identical keep-mask, rebuilt per segment in pure jnp."""
-    from fa2_triton_tpu.utils.rng import (
+    from fa2_jax.utils.rng import (
         counter_hash_uint32, dropout_threshold,
     )
 
@@ -162,20 +162,24 @@ def test_packed_varlen_dropout_matches_oracle(causal):
 
 
 def test_schedule_block_accounting():
-    """The work list contains exactly the needed blocks: at 50% real tokens
-    the non-causal schedule has half the dense step count, and causal
-    schedules enumerate the triangular count."""
+    """The index lists contain exactly the needed blocks: at 50% real tokens
+    the non-causal lists hold half the dense pair count, and causal lists
+    enumerate the triangular count."""
     starts, T = [0, 2048], 4096
     exts = _seg_extents(starts, T)
-    # 50% real tokens, non-causal: 4 q blocks live of 8, each 2 kv steps.
-    w = _build_schedule(starts, exts, [1024, 1024], [1024, 1024],
-                        512, 512, causal=False)
-    live = w[(w[:, 6] & 4) == 0]
-    assert len(w) == 2 * (2 * 2 + 2)  # 2 segs x (live q=2 x kv=2 + 2 dead)
-    # Causal full: triangular per segment.
-    w = _build_schedule(starts, exts, [2048, 2048], [2048, 2048],
-                        512, 512, causal=True)
-    assert len(w) == 2 * (1 + 2 + 3 + 4)
-    # Diagonal blocks are masked, strictly-below are not.
-    n_masked = int(((w[:, 6] & 4) != 0).sum())
-    assert n_masked == 2 * 4
+    # 50% real tokens, non-causal: 2 live q blocks of 4 per segment, each
+    # seeing 2 kv blocks; dead q blocks list nothing.
+    meta, lists = _build_schedule(starts, exts, [1024, 1024], [1024, 1024],
+                                  512, 512, causal=False)
+    assert meta.shape[0] == 8 and lists.shape[1] == 2
+    assert list(meta[:, 4]) == [2, 2, 0, 0, 2, 2, 0, 0]
+    # Causal full: triangular per segment, from both sides.
+    meta, lists = _build_schedule(starts, exts, [2048, 2048], [2048, 2048],
+                                  512, 512, causal=True)
+    assert int(meta[:, 4].sum()) == 2 * (1 + 2 + 3 + 4)
+    assert list(lists[3]) == [0, 1, 2, 3]
+    meta_kv, lists_kv = _build_schedule(
+        starts, exts, [2048, 2048], [2048, 2048], 512, 512, causal=True,
+        kv_major=True)
+    assert list(meta_kv[:4, 4]) == [4, 3, 2, 1]
+    assert list(lists_kv[5, :3]) == [5, 6, 7]

@@ -25,49 +25,47 @@ def test_softcap_with_bias():
 
 
 def test_softcap_causal_fast_path_shapes():
-    """Regression: causal+softcap at tri/strip-eligible shapes once routed to
-    the prescaled-q fast kernels, which silently DROP the tanh (the original
-    softcap tests used S=128, below every fast path's alignment gate).
-    run_attention_case's data is mild, so also pin the gates directly."""
-    from fa2_triton_tpu.ops.flash_fwd import causal_strip_ok, tri_square_ok
-
-    assert not tri_square_ok(True, True, (-1, -1), None, 256, 256, 256, 256,
-                             head_dim=128, softcap=5.0)
-    assert not causal_strip_ok(True, True, (-1, -1), None, False, 1024, 1024,
-                               1024, 1024, head_dim=256, softcap=5.0)
-    # tri-eligible shape (S=256 multiple of sub) with a biting softcap.
+    """Regression: causal+softcap once routed to fast kernels that silently
+    DROPPED the tanh; a multi-block causal shape with a biting softcap must
+    match the oracle."""
     run_attention_case(2, 4, 2, 256, 256, 128, causal=True, softcap=5.0)
 
 
 def test_block_sizes_always_lane_aligned():
-    """Regression: odd seqlens must never produce non-128-aligned blocks
-    (4700/3000 once derived block_q=682 and crashed flash_attn_func)."""
-    from fa2_triton_tpu.ops.tuning import choose_block_sizes
+    """The GPU block rule: every block is a power of two, at least 16, never
+    larger than the (power-of-two-rounded) sequence, and odd seqlens pad to
+    a multiple of every block of their axis."""
+    from fa2_jax.ops.tuning import choose_block_sizes
+    from fa2_jax.utils import round_up_to_multiple
 
     for sq, sk in [(4700, 3000), (3000, 4700), (2900, 2900), (1, 1),
-                   (130, 131), (8192, 640)]:
-        for causal in (False, True):
-            for bias in (False, True):
-                bs = choose_block_sizes(sq, sk, 128, causal=causal,
-                                        has_bias=bias)
-                for v in (bs.block_q, bs.block_kv, bs.block_q_bwd,
-                          bs.block_kv_bwd):
-                    assert v % 128 == 0, (sq, sk, causal, bias, bs)
+                   (130, 131), (8192, 640), (17, 9)]:
+        for d in (16, 64, 128, 256):
+            for bits in (16, 32):
+                bs = choose_block_sizes(sq, sk, d, dtype_bits=bits)
+                for v, s in ((bs.block_q, sq), (bs.block_kv, sk),
+                             (bs.block_q_bwd, sq), (bs.block_kv_bwd, sk)):
+                    assert v >= 16 and v & (v - 1) == 0, (sq, sk, d, bs)
+                    assert v <= max(16, 1 << (s - 1).bit_length()), (sq, sk, bs)
+                sqp = round_up_to_multiple(sq, bs.q_multiple)
+                skp = round_up_to_multiple(sk, bs.kv_multiple)
+                assert sqp % bs.block_q == 0 and sqp % bs.block_q_bwd == 0
+                assert skp % bs.block_kv == 0 and skp % bs.block_kv_bwd == 0
 
 
 def test_decode_attention_odd_cache_extent():
-    """Regression: S_max that is a multiple of 128 but not of the default
-    block must shrink the block, not assert (e.g. S_max=6144)."""
+    """Regression: S_max that is not a multiple of the requested block must
+    shrink the block, not assert (e.g. S_max=640 with block 256)."""
     import jax.numpy as jnp
     import numpy as np
-    from fa2_triton_tpu.ops.decode import decode_attention
+    from fa2_jax.ops.decode import decode_attention
 
     rng = np.random.RandomState(0)
     q = jnp.asarray(rng.normal(0, 0.5, (2, 4, 128)), jnp.float32)
     k = jnp.asarray(rng.normal(0, 0.5, (2, 2, 640, 128)), jnp.float32)
     v = jnp.asarray(rng.normal(0, 0.5, (2, 2, 640, 128)), jnp.float32)
     lens = jnp.asarray([640, 200], jnp.int32)
-    out = decode_attention(q, k, v, lens)  # 640 % 4096 != 0 -> shrink
+    out = decode_attention(q, k, v, lens, block_kv=256)  # 640 % 256 -> shrink
     assert out.shape == (2, 4, 128)
     assert bool(jnp.all(jnp.isfinite(out)))
 
@@ -78,32 +76,31 @@ def test_decode_attention_odd_cache_extent():
     ((192, 64), False),   # two-sided
 ])
 def test_banded_window_kernel_parity(window_size, causal):
-    """The banded grid (kv block = first(iq) + band step; blocks left of the
-    window never enter the grid) must be numerically identical to the full
-    grid: small blocks force several whole blocks OUTSIDE the window."""
+    """The kernel visits only the KV blocks inside each row block's window
+    (blocks left or right of it are never read): small blocks put several
+    whole blocks OUTSIDE the window, and the result must still match the
+    oracle at float32."""
     import jax
     import jax.numpy as jnp
 
-    from fa2_triton_tpu.ops.flash_fwd import flash_attn_forward
+    from fa2_jax import flash_attn_reference
+    from fa2_jax.ops.flash_fwd import flash_attn_forward
     from tests.utils import generate_test_data
 
-    B, Hq, Hkv, S, D = 2, 4, 2, 1024, 128
+    B, Hq, Hkv, S, D = 1, 4, 2, 1024, 64
     q, k, v, _ = generate_test_data(B, Hq, Hkv, S, S, D, jnp.float32)
     qT, kT, vT = (jnp.swapaxes(x, 1, 2) for x in (q, k, v))
     lens = jnp.broadcast_to(jnp.array([[S, S]], jnp.int32), (B, 2))
     scal = jnp.array([[0, 0, 0, 0]], jnp.int32)
-
-    def run(static_skip):
-        # static_skip=False disables the band, giving the full-grid result.
-        return flash_attn_forward(
-            qT, kT, vT, lens, scal, None, causal=causal,
-            softmax_scale=D ** -0.5, window=window_size,
-            block_q=128, block_kv=128,
-            seqlen_q_real=S, seqlen_k_real=S, static_skip=static_skip)
-
-    o_band, lse_band = run(True)
-    o_full, lse_full = run(False)
-    assert float(jnp.max(jnp.abs(o_band - o_full))) < 1e-6
-    fin = jnp.isfinite(lse_full)
-    assert bool(jnp.all(fin == jnp.isfinite(lse_band)))
-    assert float(jnp.max(jnp.abs(jnp.where(fin, lse_band - lse_full, 0.0)))) < 1e-5
+    o, lse = flash_attn_forward(
+        qT, kT, vT, lens, scal, None, causal=causal,
+        softmax_scale=D ** -0.5, window=window_size,
+        block_q=128, block_kv=64, seqlen_q_real=S, seqlen_k_real=S)
+    with jax.default_matmul_precision("highest"):
+        o_ref, lse_ref = flash_attn_reference(
+            q, k, v, causal=causal, window_size=window_size, return_lse=True)
+    assert float(jnp.max(jnp.abs(jnp.swapaxes(o, 1, 2) - o_ref))) < 1e-5
+    fin = jnp.isfinite(lse_ref)
+    assert bool(jnp.all(fin == jnp.isfinite(lse[..., 0])))
+    assert float(jnp.max(jnp.abs(jnp.where(fin, lse[..., 0] - lse_ref,
+                                           0.0)))) < 1e-5

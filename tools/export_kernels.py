@@ -2,8 +2,8 @@
 
 Parity with the reference's deployment story (`export_to_liger.py:9-34`
 copies `src/**.py` into a Liger-Kernel checkout rewriting imports): this
-copies `fa2_triton_tpu/ops` + `fa2_triton_tpu/utils` into a target package,
-rewriting `fa2_triton_tpu.` imports to the target package name, so the
+copies `fa2_jax/ops` + `fa2_jax/utils` into a target package,
+rewriting `fa2_jax.` imports to the target package name, so the
 attention kernels can be vendored into a larger JAX codebase.
 
 Usage:
@@ -20,7 +20,7 @@ SUBPACKAGES = ("ops", "utils")
 
 
 def export(target_dir: str, pkg_name: str | None = None) -> None:
-    src_root = os.path.join(os.path.dirname(__file__), "..", "fa2_triton_tpu")
+    src_root = os.path.join(os.path.dirname(__file__), "..", "fa2_jax")
     pkg_name = pkg_name or os.path.basename(os.path.normpath(target_dir))
     os.makedirs(target_dir, exist_ok=True)
     for sub in SUBPACKAGES:
@@ -32,8 +32,8 @@ def export(target_dir: str, pkg_name: str | None = None) -> None:
                 continue
             with open(os.path.join(src, fname)) as f:
                 code = f.read()
-            code = re.sub(r"\bfrom fa2_triton_tpu\.", f"from {pkg_name}.", code)
-            code = re.sub(r"\bimport fa2_triton_tpu\b", f"import {pkg_name}", code)
+            code = re.sub(r"\bfrom fa2_jax\.", f"from {pkg_name}.", code)
+            code = re.sub(r"\bimport fa2_jax\b", f"import {pkg_name}", code)
             with open(os.path.join(dst, fname), "w") as f:
                 f.write(code)
             print(f"exported {sub}/{fname}")

@@ -18,7 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from fa2_triton_tpu import flash_attn_func, flash_attn_reference  # noqa: E402
+from fa2_jax import flash_attn_func, flash_attn_reference  # noqa: E402
 
 
 def main():
